@@ -6,9 +6,9 @@
 // tree, and a post-order AABB pass. Semantics match ops/bvh.py
 // build_bvh EXACTLY (same f32 quantization, same index tie-break delta,
 // same stable ordering) so the two builders are interchangeable; the
-// native one exists because the jitted device build costs a ~10-minute
-// XLA compile per new triangle count on the remote TPU service, while
-// this runs in milliseconds for any size.
+// native one exists because the jitted device build costs an XLA
+// compile per new triangle count, while this runs in milliseconds for
+// any size.
 //
 // Node indexing for T triangles (ops/bvh.py:11-13):
 //   internal 0..T-2; leaf k = node (T-1)+k holding sorted triangle k.
@@ -85,7 +85,7 @@ extern "C" {
 // Outputs must be caller-allocated:
 //   node_min/node_max: (2T-1)*3 floats; left/right/tri: (2T-1) int32.
 // Returns 0 on success.
-int hrtpu_build_lbvh(const float* v0, const float* v1, const float* v2,
+int hr_build_lbvh(const float* v0, const float* v1, const float* v2,
                      int64_t T, float* node_min, float* node_max,
                      int32_t* left_out, int32_t* right_out,
                      int32_t* tri_out) {
@@ -194,7 +194,7 @@ int hrtpu_build_lbvh(const float* v0, const float* v1, const float* v2,
 // PREFER_FAST_TRACE structures (Scene.cpp:397, Model.cpp:150) — the
 // driver's SAH build; this is that analog (host sim: 1.3-1.7x fewer
 // packet traversal steps than the LBVH on the stress scene).
-int hrtpu_build_sah(const float* v0, const float* v1, const float* v2,
+int hr_build_sah(const float* v0, const float* v1, const float* v2,
                     int64_t T, float* node_min, float* node_max,
                     int32_t* left_out, int32_t* right_out,
                     int32_t* tri_out) {

@@ -1,7 +1,7 @@
 // Native OBJ parser — the hot path of the asset importer.
 //
 // The reference's import pipeline is native (Assimp via
-// AssetImporter.cpp:137-287); this library is the TPU rebuild's
+// AssetImporter.cpp:137-287); this library is this rebuild's
 // equivalent for Wavefront OBJ: a single-pass, zero-copy-ish tokenizer
 // that is ~50-100x faster than line-by-line Python for Sponza-sized
 // meshes. Exposed through ctypes (scene/loader_native.py); the Python

@@ -7,14 +7,14 @@ alpha-tested fragments below the cutoff (gbuffer.frag:33).
 import jax.numpy as jnp
 import numpy as np
 
-from hybridrenderer_tpu.core.camera import OrbitCamera
-from hybridrenderer_tpu.core.config import RenderSettings
-from hybridrenderer_tpu.core.types import RenderFlags, RenderPathType
-from hybridrenderer_tpu.ops import trace
-from hybridrenderer_tpu.runtime.renderer import Renderer
-from hybridrenderer_tpu.scene import geometry
-from hybridrenderer_tpu.scene.scene import Scene
-from hybridrenderer_tpu.scene.schema import Material, TextureStack
+from hybridrenderer.core.camera import OrbitCamera
+from hybridrenderer.core.config import RenderSettings
+from hybridrenderer.core.types import RenderFlags, RenderPathType
+from hybridrenderer.ops import trace
+from hybridrenderer.runtime.renderer import Renderer
+from hybridrenderer.scene import geometry
+from hybridrenderer.scene.scene import Scene
+from hybridrenderer.scene.schema import Material, TextureStack
 
 
 def _alpha_checker_stack(n=8):

@@ -10,14 +10,14 @@ import os
 import jax.numpy as jnp
 import numpy as np
 
-from hybridrenderer_tpu.core.camera import OrbitCamera
-from hybridrenderer_tpu.core.config import RenderSettings
-from hybridrenderer_tpu.core.types import RenderFlags, RenderPathType
-from hybridrenderer_tpu.graph.params import FrameParams
-from hybridrenderer_tpu.ops import gbuffer, raster
-from hybridrenderer_tpu.ops.trace import SceneTracer
-from hybridrenderer_tpu.scene import dynamic, schema
-from hybridrenderer_tpu.scene import scene as scene_mod
+from hybridrenderer.core.camera import OrbitCamera
+from hybridrenderer.core.config import RenderSettings
+from hybridrenderer.core.types import RenderFlags, RenderPathType
+from hybridrenderer.graph.params import FrameParams
+from hybridrenderer.ops import gbuffer, raster
+from hybridrenderer.ops.trace import SceneTracer
+from hybridrenderer.scene import dynamic, schema
+from hybridrenderer.scene import scene as scene_mod
 
 
 class _Ctx:

@@ -2,7 +2,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from hybridrenderer_tpu.ops import svgf, taa
+from hybridrenderer.ops import svgf, taa
 
 H, W = 24, 32
 PHI = jnp.array([4.0, 128.0, 0.02, 0.0], jnp.float32)
@@ -196,98 +196,9 @@ def test_taa_nan_history_safe():
     assert np.isfinite(np.asarray(out)).all()
 
 
-def test_temporal_tile_gather_matches_pixel():
-    """Windowed Pallas (tile) reprojection == per-pixel gather under
-    smooth motion (footprint bases within RANGE of each tile's min)."""
-    rng = np.random.default_rng(7)
-    normal, mp, oid = _flat_geom()
-    # smooth few-px motion field
-    ys, xs = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
-    mx = (2.5 + 0.3 * np.sin(xs / 9.0)) / W
-    my = (-1.5 + 0.4 * np.cos(ys / 7.0)) / H
-    mp = mp.at[..., 0].set(jnp.asarray(mx.astype(np.float32)))
-    mp = mp.at[..., 1].set(jnp.asarray(my.astype(np.float32)))
-    hist = svgf.SVGFSignalHistory(
-        signal=jnp.asarray(rng.random((H, W, 4)).astype(np.float32)),
-        moments=jnp.asarray(rng.random((H, W, 4)).astype(np.float32)))
-    sig = jnp.asarray(rng.random((H, W, 4)).astype(np.float32))
-    albedo = jnp.ones((H, W, 3))
-    args = (sig, albedo, mp, normal, oid, hist, normal, mp[..., 2], oid)
-    out_p, mom_p = svgf.temporal(*args, use_albedo_demod=False,
-                                 history_valid=True, gather="pixel")
-    out_t, mom_t = svgf.temporal(*args, use_albedo_demod=False,
-                                 history_valid=True,
-                                 gather="tile_interpret")
-    # tile path keeps windows in f32; tolerance covers float
-    # accumulation-order differences between the two gather strategies
-    np.testing.assert_allclose(np.asarray(out_t), np.asarray(out_p),
-                               rtol=4e-3, atol=4e-3)
-    np.testing.assert_allclose(np.asarray(mom_t), np.asarray(mom_p),
-                               rtol=4e-3, atol=4e-3)
-
-
-def test_temporal_tile_gather_divergent_motion_falls_back():
-    """Pixels whose footprint base strays >= RANGE px from their tile's
-    minimum get history rejected (accum == current sample)."""
-    from hybridrenderer_tpu.ops.temporal_pallas import RANGE
-    normal, mp, oid = _flat_geom()
-    # half the pixels still, half yanked (RANGE+12) px sideways
-    ys, xs = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
-    div = ((xs % 2 == 1).astype(np.float32)) * ((RANGE + 12.0) / W)
-    mp = mp.at[..., 0].set(jnp.asarray(div))
-    hist = svgf.SVGFSignalHistory(
-        signal=jnp.full((H, W, 4), 100.0),
-        moments=jnp.full((H, W, 4), 9.0))
-    sig = jnp.full((H, W, 4), 0.5)
-    out, moments = svgf.temporal(
-        sig, jnp.ones((H, W, 3)), mp, normal, oid, hist, normal,
-        mp[..., 2], oid, use_albedo_demod=False, history_valid=True,
-        gather="tile_interpret")
-    out_np = np.asarray(out)
-    # the yanked pixels' bases exceed the window range -> no history
-    mask = (np.asarray(div) > 0) & (xs + RANGE + 12 < W - 1)
-    np.testing.assert_allclose(out_np[mask], 0.5, atol=1e-6)
-
-def test_taa_tile_gather_matches_pixel():
-    """TAA tile (windowed Pallas) history fetch == per-pixel bilinear for
-    smooth sub-window motion (taa.comp:95-103 reprojection)."""
-    rng = np.random.default_rng(11)
-    Ht, Wt = 64, 256
-    cur = jnp.asarray(rng.random((Ht, Wt, 3)).astype(np.float32))
-    hist = jnp.asarray(rng.random((Ht, Wt, 3)).astype(np.float32))
-    depth = jnp.asarray(rng.random((Ht, Wt)).astype(np.float32))
-    motion = jnp.full((Ht, Wt, 2), 0.01)  # smooth uniform motion
-    j = jnp.zeros((2,))
-    out_p = taa.resolve(cur, hist, motion, depth, j, j, history_valid=True,
-                        gather="pixel")
-    out_t = taa.resolve(cur, hist, motion, depth, j, j, history_valid=True,
-                        gather="tile_interpret")
-    np.testing.assert_allclose(np.asarray(out_t), np.asarray(out_p),
-                               rtol=4e-3, atol=4e-3)
-
-
-def test_taa_tile_gather_fast_motion_fallback():
-    """Out-of-window motion drops history (alpha=1) instead of producing
-    garbage."""
-    rng = np.random.default_rng(12)
-    Ht, Wt = 64, 256
-    cur = jnp.asarray(rng.random((Ht, Wt, 3)).astype(np.float32))
-    hist = jnp.asarray(rng.random((Ht, Wt, 3)).astype(np.float32))
-    depth = jnp.asarray(rng.random((Ht, Wt)).astype(np.float32))
-    # violently divergent motion: exceeds the RANGE window inside tiles
-    my = rng.uniform(-0.4, 0.4, (Ht, Wt)).astype(np.float32)
-    mx = rng.uniform(-0.4, 0.4, (Ht, Wt)).astype(np.float32)
-    motion = jnp.stack([jnp.asarray(mx), jnp.asarray(my)], -1)
-    j = jnp.zeros((2,))
-    out = taa.resolve(cur, hist, motion, depth, j, j, history_valid=True,
-                      gather="tile_interpret")
-    assert np.isfinite(np.asarray(out)).all()
-
-
 def test_denoise_multi_matches_single():
-    """The fused K-signal chain (denoise_multi / temporal_multi /
-    reproject_multi) is pixel-identical to K independent chains, for
-    both gather strategies."""
+    """The fused K-signal chain (denoise_multi / temporal_multi) is
+    pixel-identical to K independent chains."""
     rng = np.random.default_rng(21)
     Ht, Wt = 64, 256
     normal = jnp.tile(jnp.array([0.0, 0.0, 1.0]), (Ht, Wt, 1))
@@ -302,14 +213,9 @@ def test_denoise_multi_matches_single():
             signal=jnp.asarray(rng.random((Ht, Wt, 4)).astype(np.float32)),
             moments=jnp.asarray(
                 rng.random((Ht, Wt, 4)).astype(np.float32)) + 0.5))
-        cfgs.append(svgf.SVGFConfig(prefix=f"S{k}", use_albedo_demod=demod,
-                                    backend="jnp"))
+        cfgs.append(svgf.SVGFConfig(prefix=f"S{k}", use_albedo_demod=demod))
 
-    for backend, gather in (("jnp", "pixel"), ("jnp", "tile_interpret")):
-        cfgs_g = [svgf.SVGFConfig(prefix=c.prefix,
-                                  use_albedo_demod=c.use_albedo_demod,
-                                  backend=backend, temporal_gather=gather)
-                  for c in cfgs]
+    for cfgs_g in (cfgs,):
         multi = svgf.denoise_multi(
             sigs, albedo, mp, normal, oid, hists, normal, mp[..., 2], oid,
             cfgs_g, PHI, history_valid=True)

@@ -9,15 +9,15 @@ integrates the per-frame pattern rotations (same argument as AO).
 import jax.numpy as jnp
 import numpy as np
 
-from hybridrenderer_tpu.core.camera import OrbitCamera
-from hybridrenderer_tpu.core.config import RenderSettings
-from hybridrenderer_tpu.core.types import RenderFlags, RenderPathType
-from hybridrenderer_tpu.graph import rt_passes
-from hybridrenderer_tpu.graph.params import RS, FrameParams
-from hybridrenderer_tpu.graph.passes import FrameContext
-from hybridrenderer_tpu.ops import gbuffer, raster
-from hybridrenderer_tpu.ops.trace import SceneTracer
-from hybridrenderer_tpu.scene import scene as scene_mod
+from hybridrenderer.core.camera import OrbitCamera
+from hybridrenderer.core.config import RenderSettings
+from hybridrenderer.core.types import RenderFlags, RenderPathType
+from hybridrenderer.graph import rt_passes
+from hybridrenderer.graph.params import RS, FrameParams
+from hybridrenderer.graph.passes import FrameContext
+from hybridrenderer.ops import gbuffer, raster
+from hybridrenderer.ops.trace import SceneTracer
+from hybridrenderer.scene import scene as scene_mod
 
 SIZE = 64
 

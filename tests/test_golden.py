@@ -4,12 +4,12 @@ import os
 
 import numpy as np
 
-from hybridrenderer_tpu.core.camera import OrbitCamera
-from hybridrenderer_tpu.core.config import RenderSettings
-from hybridrenderer_tpu.core.types import RenderFlags, RenderPathType
-from hybridrenderer_tpu.runtime.output import read_png, to_u8
-from hybridrenderer_tpu.runtime.renderer import Renderer
-from hybridrenderer_tpu.scene import scene as scenes
+from hybridrenderer.core.camera import OrbitCamera
+from hybridrenderer.core.config import RenderSettings
+from hybridrenderer.core.types import RenderFlags, RenderPathType
+from hybridrenderer.runtime.output import read_png, to_u8
+from hybridrenderer.runtime.renderer import Renderer
+from hybridrenderer.scene import scene as scenes
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 
@@ -31,16 +31,16 @@ def test_cube_forward_golden():
 
 
 def test_cube_forward_golden_offedge():
-    """Device-independent golden gate (VERDICT r2 weak #5): whatever
+    """Device-independent golden gate: whatever
     backend runs this, any error beyond the CPU tolerance must be
     confined to (dilated) triangle-boundary pixels — the only place
     fma/tie-break winner flips can live. Off-edge error above the CPU
     max-tolerance is a genuine raster bug and fails here."""
     import jax.numpy as jnp
 
-    from hybridrenderer_tpu.core import maths
-    from hybridrenderer_tpu.ops import raster as raster_ops
-    from hybridrenderer_tpu.ops.image import tri_boundary_mask
+    from hybridrenderer.core import maths
+    from hybridrenderer.ops import raster as raster_ops
+    from hybridrenderer.ops.image import tri_boundary_mask
 
     data = scenes.cube_scene().build()
     s = RenderSettings(width=64, height=64, path=RenderPathType.FORWARD,

@@ -1,4 +1,4 @@
-"""Golden-image ladder (VERDICT round-1 weak #4): hybrid paths, cut-out
+"""Golden-image ladder: hybrid paths, cut-out
 alpha, display modes, and a textured .glb scene — the image-regression
 substitute for the reference's 12 eyeball display modes (SURVEY §4,
 composition.frag:78-93).
@@ -25,13 +25,13 @@ if __name__ == "__main__":
 
 import numpy as np
 
-from hybridrenderer_tpu.core.camera import OrbitCamera
-from hybridrenderer_tpu.core.config import RenderSettings
-from hybridrenderer_tpu.core.types import DisplayMode, RenderFlags, \
+from hybridrenderer.core.camera import OrbitCamera
+from hybridrenderer.core.config import RenderSettings
+from hybridrenderer.core.types import DisplayMode, RenderFlags, \
     RenderPathType
-from hybridrenderer_tpu.runtime.output import read_png, to_u8, write_png
-from hybridrenderer_tpu.runtime.renderer import Renderer
-from hybridrenderer_tpu.scene import scene as scenes
+from hybridrenderer.runtime.output import read_png, to_u8, write_png
+from hybridrenderer.runtime.renderer import Renderer
+from hybridrenderer.scene import scene as scenes
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 
@@ -39,7 +39,7 @@ GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 def _render(case):
     data = case["scene"]().build()
     # goldens pin the sampling block size: the ao_block/gi_block DEFAULT
-    # is a perf tunable (32 since batch 27) and 2-frame goldens are far
+    # is a perf tunable and 2-frame goldens are far
     # from SVGF convergence, so re-tuning it must not move the images
     s = RenderSettings(width=case.get("size", 128),
                        height=case.get("size", 128),
@@ -90,7 +90,7 @@ CASES = {
         scene=scenes.cube_scene, path=RenderPathType.RAYTRACED,
         flags=RenderFlags.LIGHT | RenderFlags.IBL | RenderFlags.TAA
         | RenderFlags.EMISSIVE, cam=CUBE_CAM, frames=2),
-    # the flagship config in miniature (VERDICT r2 task 4): textured
+    # the flagship config in miniature: textured
     # stress geometry through the hybrid path — all four texture slots
     # bound, slot-gated sampling + quad-texel layout on the same image
     "stress_textured_128": dict(
@@ -139,7 +139,7 @@ def test_stress_textured_golden():
 def test_textured_gltf_golden():
     """Textured .glb through the self-contained loader (AssetImporter
     analog) — exercises the texture atlas sampler in a full frame."""
-    from hybridrenderer_tpu.scene.loader import load_scene_file
+    from hybridrenderer.scene.loader import load_scene_file
     glb = os.path.join(GOLDEN_DIR, "textured_tri.glb")
     sc = load_scene_file(glb)
     data = sc.build()

@@ -1,11 +1,11 @@
 """Render graph: validation, Mermaid export, pass ordering."""
 import pytest
 
-from hybridrenderer_tpu.core.config import RenderSettings
-from hybridrenderer_tpu.core.types import RenderFlags, RenderPathType
-from hybridrenderer_tpu.graph.graph import RenderGraph
-from hybridrenderer_tpu.graph.params import FrameState
-from hybridrenderer_tpu.paths.factory import create_render_path
+from hybridrenderer.core.config import RenderSettings
+from hybridrenderer.core.types import RenderFlags, RenderPathType
+from hybridrenderer.graph.graph import RenderGraph
+from hybridrenderer.graph.params import FrameState
+from hybridrenderer.paths.factory import create_render_path
 
 
 def test_undeclared_read_rejected():

@@ -1,20 +1,19 @@
 """Depth-aware upsample (ops/image.upsample2x_depth_aware) unit tests +
 the half-res reflection/GI e2e render that uses it.
 
-The reference traces AO full-res (rt_shadow.rgen). An ao_half_res
-option existed but measured SLOWER than full-res twice (r2 breakdown,
-r3 batch 6) and was removed; reflection/gi_half_res remain the
-supported half-res ray-effect tradeoffs.
+The reference traces AO full-res (rt_shadow.rgen), and so does this
+renderer; reflection/gi_half_res are the supported half-res ray-effect
+tradeoffs.
 """
 import jax.numpy as jnp
 import numpy as np
 
-from hybridrenderer_tpu.core.camera import OrbitCamera
-from hybridrenderer_tpu.core.config import RenderSettings
-from hybridrenderer_tpu.core.types import RenderFlags, RenderPathType
-from hybridrenderer_tpu.ops import image as img_ops
-from hybridrenderer_tpu.runtime.renderer import Renderer
-from hybridrenderer_tpu.scene import scene as scenes
+from hybridrenderer.core.camera import OrbitCamera
+from hybridrenderer.core.config import RenderSettings
+from hybridrenderer.core.types import RenderFlags, RenderPathType
+from hybridrenderer.ops import image as img_ops
+from hybridrenderer.runtime.renderer import Renderer
+from hybridrenderer.scene import scene as scenes
 
 
 def test_upsample_constant_passthrough():
@@ -67,21 +66,21 @@ def test_half_res_refl_gi_render_matches_full_res_roughly():
 
 
 def test_reflection_half_res_quality_gate():
-    """reflection_half_res is a supported speed/quality option (VERDICT
-    r3 task 8): the depth-aware upsampled mirror signal must stay within
+    """reflection_half_res is a supported speed/quality option: the
+    depth-aware upsampled mirror signal must stay within
     a tight bound of the full-res render (CPU-measured 2026-08: mean
     0.38 / p99 1.0 / max 202 at isolated silhouette pixels on cornell,
     4 frames). Catches upsample regressions; GI half-res is gated
     separately (its interleaved-direction blocks interact with
-    resolution — see BENCH.md r4)."""
+    resolution)."""
     import numpy as np
 
-    from hybridrenderer_tpu.core.camera import OrbitCamera
-    from hybridrenderer_tpu.core.config import RenderSettings
-    from hybridrenderer_tpu.core.types import RenderFlags, RenderPathType
-    from hybridrenderer_tpu.runtime.output import to_u8
-    from hybridrenderer_tpu.runtime.renderer import Renderer
-    from hybridrenderer_tpu.scene import scene as scenes
+    from hybridrenderer.core.camera import OrbitCamera
+    from hybridrenderer.core.config import RenderSettings
+    from hybridrenderer.core.types import RenderFlags, RenderPathType
+    from hybridrenderer.runtime.output import to_u8
+    from hybridrenderer.runtime.renderer import Renderer
+    from hybridrenderer.scene import scene as scenes
 
     flags = RenderFlags.default_hybrid() | RenderFlags.REFLECTION
     data = scenes.cornell_scene().build()
@@ -107,7 +106,7 @@ def test_gi_half_res_quality_gate():
     """gi_half_res REGRESSION gate — the knob is documented
     EXPERIMENTAL (core/config.py): converged p99 ~32 u8 is preview
     quality, and this bound only catches the upsample path rotting
-    further, not banding. (VERDICT r3 task 8 / r4 weak #7.) The
+    further, not banding. The
     interleave
     block is auto-halved at half-res so each direction block covers the
     SAME full-res screen area (rt_passes.make_rt_gi_pass) — without the
@@ -117,12 +116,12 @@ def test_gi_half_res_quality_gate():
     stochastic signal (CPU-measured 2026-08: mean 2.6 / p99 ~32)."""
     import numpy as np
 
-    from hybridrenderer_tpu.core.camera import OrbitCamera
-    from hybridrenderer_tpu.core.config import RenderSettings
-    from hybridrenderer_tpu.core.types import RenderFlags, RenderPathType
-    from hybridrenderer_tpu.runtime.output import to_u8
-    from hybridrenderer_tpu.runtime.renderer import Renderer
-    from hybridrenderer_tpu.scene import scene as scenes
+    from hybridrenderer.core.camera import OrbitCamera
+    from hybridrenderer.core.config import RenderSettings
+    from hybridrenderer.core.types import RenderFlags, RenderPathType
+    from hybridrenderer.runtime.output import to_u8
+    from hybridrenderer.runtime.renderer import Renderer
+    from hybridrenderer.scene import scene as scenes
 
     flags = (RenderFlags.default_hybrid() | RenderFlags.GI
              | RenderFlags.SVGF | RenderFlags.SVGF_TEMPORAL

@@ -2,8 +2,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from hybridrenderer_tpu.ops import image as img_ops
-from hybridrenderer_tpu.ops import sampling
+from hybridrenderer.ops import image as img_ops
+from hybridrenderer.ops import sampling
 
 
 def test_pattern_major_round_trip():
@@ -80,9 +80,9 @@ def test_tile_major_packets_are_tiles():
 def test_shadow_query_layouts_match_flat():
     """Relayouted traversal returns identical visibility (same rays, same
     scene) as the flat path — the relayouts are pure permutations."""
-    from hybridrenderer_tpu.core.config import RenderSettings
-    from hybridrenderer_tpu.ops.trace import SceneTracer
-    from hybridrenderer_tpu.scene import scene as scenes
+    from hybridrenderer.core.config import RenderSettings
+    from hybridrenderer.ops.trace import SceneTracer
+    from hybridrenderer.scene import scene as scenes
 
     data = scenes.cornell_scene().build()
     tracer = SceneTracer.build(data, RenderSettings(trace_backend="jnp"))

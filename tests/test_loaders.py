@@ -7,8 +7,8 @@ import struct
 import numpy as np
 import pytest
 
-from hybridrenderer_tpu.runtime import output
-from hybridrenderer_tpu.scene import loader, loader_obj
+from hybridrenderer.runtime import output
+from hybridrenderer.scene import loader, loader_obj
 
 
 def test_png_roundtrip(tmp_path):
@@ -149,7 +149,7 @@ def test_texture_stack_build(tmp_path):
     img[..., 3] = 255
     p = str(tmp_path / "red.png")
     output.write_png(p, img)
-    from hybridrenderer_tpu.scene.schema import Material
+    from hybridrenderer.scene.schema import Material
 
     mats = [Material(name="m")]
     stack = loader.build_texture_stack({0: {"colour": p}}, mats, max_size=16)
@@ -169,7 +169,7 @@ def test_texture_stack_env_cap(tmp_path, monkeypatch):
     img[..., 3] = 255
     p = str(tmp_path / "g.png")
     output.write_png(p, img)
-    from hybridrenderer_tpu.scene.schema import Material
+    from hybridrenderer.scene.schema import Material
 
     monkeypatch.setenv("HR_TEX_MAX", "8")
     stack = loader.build_texture_stack({0: {"colour": p}},
@@ -180,7 +180,7 @@ def test_texture_stack_env_cap(tmp_path, monkeypatch):
 
 def test_native_matches_python(tmp_path, monkeypatch):
     """Native C++ parser and pure-Python parser produce the same mesh."""
-    from hybridrenderer_tpu.scene import loader_native
+    from hybridrenderer.scene import loader_native
 
     if not loader_native.available():
         pytest.skip("native loader unavailable")
@@ -214,12 +214,12 @@ def test_async_load_with_inflight_rendering(tmp_path):
     the loaded scene swaps in when done."""
     import numpy as np
 
-    from hybridrenderer_tpu.core.camera import OrbitCamera
-    from hybridrenderer_tpu.core.config import RenderSettings
-    from hybridrenderer_tpu.core.types import RenderFlags, RenderPathType
-    from hybridrenderer_tpu.runtime.renderer import Renderer
-    from hybridrenderer_tpu.scene import scene as scenes
-    from hybridrenderer_tpu.scene.loader import load_scene_async
+    from hybridrenderer.core.camera import OrbitCamera
+    from hybridrenderer.core.config import RenderSettings
+    from hybridrenderer.core.types import RenderFlags, RenderPathType
+    from hybridrenderer.runtime.renderer import Renderer
+    from hybridrenderer.scene import scene as scenes
+    from hybridrenderer.scene.loader import load_scene_async
 
     obj = tmp_path / "tri.obj"
     obj.write_text("v 0 0 0\nv 1 0 0\nv 0 1 0\nf 1 2 3\n")
@@ -249,14 +249,14 @@ def test_async_load_with_inflight_rendering(tmp_path):
 
 def test_tex_max_default_is_native_comparable():
     """The default texture cap is 1024 — fidelity-comparable with the
-    reference's native-resolution bindless sampling (VERDICT r4
-    missing #1: no silent 512). HR_TEX_MAX remains the capacity knob."""
+    reference's native-resolution bindless sampling (no silent 512).
+    HR_TEX_MAX remains the capacity knob."""
     import os
 
     assert "HR_TEX_MAX" not in os.environ
     import inspect
 
-    from hybridrenderer_tpu.scene import loader
+    from hybridrenderer.scene import loader
 
     src = inspect.getsource(loader.build_texture_stack)
     assert '"1024"' in src

@@ -2,8 +2,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from hybridrenderer_tpu.core import maths
-from hybridrenderer_tpu.core.camera import CameraState, OrbitCamera
+from hybridrenderer.core import maths
+from hybridrenderer.core.camera import CameraState, OrbitCamera
 
 
 def test_reversed_z_projection_near_far():

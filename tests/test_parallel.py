@@ -3,13 +3,13 @@ import jax
 import numpy as np
 import pytest
 
-from hybridrenderer_tpu.core.camera import OrbitCamera
-from hybridrenderer_tpu.core.config import RenderSettings
-from hybridrenderer_tpu.core.types import RenderFlags, RenderPathType
-from hybridrenderer_tpu.parallel.mesh import make_mesh, row_sharding
-from hybridrenderer_tpu.parallel.sharded import ShardedRenderer
-from hybridrenderer_tpu.runtime.renderer import Renderer
-from hybridrenderer_tpu.scene import scene as scenes
+from hybridrenderer.core.camera import OrbitCamera
+from hybridrenderer.core.config import RenderSettings
+from hybridrenderer.core.types import RenderFlags, RenderPathType
+from hybridrenderer.parallel.mesh import make_mesh, row_sharding
+from hybridrenderer.parallel.sharded import ShardedRenderer
+from hybridrenderer.runtime.renderer import Renderer
+from hybridrenderer.scene import scene as scenes
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8,
                                 reason="needs 8 virtual devices")
@@ -61,7 +61,7 @@ def test_sharded_history_carries():
 def test_sharded_hybrid_matches_single_device():
     """Row-sharded HYBRID frame (raster + RT shadow/AO + SVGF +
     composition) == single-device frame, with ray passes pinned
-    per-shard via shard_map (VERDICT round-1 weak #5)."""
+    per-shard via shard_map."""
     data = scenes.cube_scene().build()
     flags = RenderFlags.default_hybrid()
     s = RenderSettings(width=64, height=64, path=RenderPathType.HYBRID,

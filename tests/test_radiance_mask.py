@@ -11,13 +11,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from hybridrenderer_tpu.core.camera import OrbitCamera
-from hybridrenderer_tpu.core.config import RenderSettings
-from hybridrenderer_tpu.core.types import RenderFlags, RenderPathType
-from hybridrenderer_tpu.graph.params import FrameParams
-from hybridrenderer_tpu.graph.passes import FrameContext
-from hybridrenderer_tpu.ops import trace as trace_ops
-from hybridrenderer_tpu.scene import scene as scene_mod
+from hybridrenderer.core.camera import OrbitCamera
+from hybridrenderer.core.config import RenderSettings
+from hybridrenderer.core.types import RenderFlags, RenderPathType
+from hybridrenderer.graph.params import FrameParams
+from hybridrenderer.graph.passes import FrameContext
+from hybridrenderer.ops import trace as trace_ops
+from hybridrenderer.scene import scene as scene_mod
 
 
 def _ctx(data, settings):
@@ -88,7 +88,7 @@ def test_active_mask_gives_sky_and_preserves_rest(cornell):
 def test_half_res_secondary_renders():
     """reflection_half_res + gi_half_res render finite non-trivial output
     through the full graph (depth-aware upsample path)."""
-    from hybridrenderer_tpu.runtime.renderer import Renderer
+    from hybridrenderer.runtime.renderer import Renderer
 
     data = scene_mod.cornell_scene().build()
     fl = (RenderFlags.LIGHT | RenderFlags.IBL | RenderFlags.EMISSIVE

@@ -1,92 +1,14 @@
-"""G-buffer attribute ride-along: the raster kernel's interpolated
-attribute image must match the gather-based G-buffer (interpret mode).
-
-The ride-along replaces the per-pixel scene.attr_rows gather (~48 ms at
-1080p, batch 20/22) with one-hot MXU picks inside the tile kernel —
-the TPU formulation of the reference's raster-interpolator MRT G-buffer
-(gbuffer.vert/gbuffer.frag:25-67).
-"""
+"""Clip-stage inputs of the raster: the gather-free corner path (the
+soup's per-corner tables transformed directly, as the G-buffer pass
+does) against the shared-vertex gather path."""
 import jax.numpy as jnp
 import numpy as np
 
-from hybridrenderer_tpu.core.camera import OrbitCamera
-from hybridrenderer_tpu.ops import gbuffer as gbuffer_ops
-from hybridrenderer_tpu.ops import raster, raster_pallas
-from hybridrenderer_tpu.scene import scene as scene_mod
+from hybridrenderer.core.camera import OrbitCamera
+from hybridrenderer.ops import raster
+from hybridrenderer.scene import scene as scene_mod
 
 W, H = 128, 64
-
-
-def _raster_both(data, cam):
-    clip = raster.transform_to_clip(
-        data.vertices.world_position,
-        jnp.asarray(cam.proj) @ jnp.asarray(cam.view))
-    tris = raster.clip_triangles(clip, data.triangles.i0, data.triangles.i1,
-                                 data.triangles.i2, W, H)
-    vis_plain = raster_pallas.rasterize_binned(tris, W, H, interpret=True)
-    vis_attr, attrs = raster_pallas.rasterize_binned(
-        tris, W, H, interpret=True, attr_table=data.raster_rows)
-    return vis_plain, vis_attr, attrs
-
-
-def test_attr_ride_along_matches_gather():
-    data = scene_mod.stress_scene(num_objects=8, seed=5).build()
-    cam = OrbitCamera(width=W, height=H, distance=25.0, pitch=0.5, yaw=0.8,
-                      focal_point=(0, 2, 0)).step()
-    vis_plain, vis_attr, attrs = _raster_both(data, cam)
-
-    # identical winner resolve (attr ride shares v1 winner logic)
-    np.testing.assert_array_equal(np.asarray(vis_attr.tri_id),
-                                  np.asarray(vis_plain.tri_id))
-    np.testing.assert_array_equal(np.asarray(vis_attr.depth),
-                                  np.asarray(vis_plain.depth))
-
-    gb_gather = gbuffer_ops.build_gbuffer(vis_plain, data, cam)
-    gb_kernel = gbuffer_ops.build_gbuffer(vis_attr, data, cam,
-                                          kernel_attrs=attrs)
-
-    np.testing.assert_array_equal(np.asarray(gb_kernel.object_id),
-                                  np.asarray(gb_gather.object_id))
-    for name in ("albedo", "normal", "material", "motion", "emissive",
-                 "world_pos", "uv", "linear_depth"):
-        a = np.asarray(getattr(gb_kernel, name))
-        b = np.asarray(getattr(gb_gather, name))
-        # numerator-matmul lerp vs normalized-bary lerp: same math,
-        # different float association
-        np.testing.assert_allclose(a, b, atol=2e-3, err_msg=name)
-
-
-def test_attr_bits16_close_to_f32():
-    """bf16 attribute planes (reference RGBA16F MRT analog) stay within
-    bf16 rounding of the f32 ride-along."""
-    data = scene_mod.stress_scene(num_objects=8, seed=5).build()
-    cam = OrbitCamera(width=W, height=H, distance=25.0, pitch=0.5, yaw=0.8,
-                      focal_point=(0, 2, 0)).step()
-    clip = raster.transform_to_clip(
-        data.vertices.world_position,
-        jnp.asarray(cam.proj) @ jnp.asarray(cam.view))
-    tris = raster.clip_triangles(clip, data.triangles.i0, data.triangles.i1,
-                                 data.triangles.i2, W, H)
-    _, a32 = raster_pallas.rasterize_binned(
-        tris, W, H, interpret=True, attr_table=data.raster_rows)
-    vis16, a16 = raster_pallas.rasterize_binned(
-        tris, W, H, interpret=True, attr_table=data.raster_rows,
-        attr_bits=16)
-    assert a16.dtype == jnp.float32   # consumer-boundary upcast
-    a32n, a16n = np.asarray(a32), np.asarray(a16)
-    denom = np.maximum(np.abs(a32n), 1.0)
-    assert (np.abs(a16n - a32n) / denom).max() < 2 ** -7
-
-
-def test_attr_ride_along_background_zero():
-    data = scene_mod.cube_scene().build()
-    cam = OrbitCamera(width=W, height=H, distance=6.0, pitch=0.5,
-                      focal_point=(0, 0.75, 0)).step()
-    _, vis_attr, attrs = _raster_both(data, cam)
-    bg = np.asarray(vis_attr.tri_id) < 0
-    assert bg.any() and (~bg).any()
-    # background pixels were never taken: attrs stay at their zero init
-    np.testing.assert_array_equal(np.asarray(attrs)[bg], 0.0)
 
 
 def test_soup_corner_clip_matches_gather():
@@ -111,21 +33,3 @@ def test_soup_corner_clip_matches_gather():
     np.testing.assert_array_equal(np.asarray(out.z), np.asarray(ref.z))
     np.testing.assert_array_equal(np.asarray(out.tri_id),
                                   np.asarray(ref.tri_id))
-
-
-def test_raster_rows_layout():
-    from hybridrenderer_tpu.scene import schema
-
-    data = scene_mod.stress_scene(num_objects=4, seed=2).build()
-    rows = np.asarray(data.raster_rows)
-    assert rows.shape == (data.num_triangles, schema.RATTR_WIDTH)
-    soup = data.triangles
-    # vertex-0 world position matches the vertex table
-    np.testing.assert_allclose(
-        rows[:, 0:3],
-        np.asarray(data.vertices.world_position)[np.asarray(soup.i0)],
-        atol=1e-6)
-    # instance id rides the const block
-    np.testing.assert_array_equal(
-        rows[:, schema.RATTR_INST_ID].astype(np.int32),
-        np.asarray(soup.instance))

@@ -2,11 +2,11 @@
 analog, EditorLayer.cpp:182-540 / Application.cpp:408-448)."""
 import numpy as np
 
-from hybridrenderer_tpu.core.camera import OrbitCamera
-from hybridrenderer_tpu.core.config import RenderSettings
-from hybridrenderer_tpu.core.types import RenderFlags, RenderPathType
-from hybridrenderer_tpu.runtime.renderer import Renderer
-from hybridrenderer_tpu.scene import scene as scenes
+from hybridrenderer.core.camera import OrbitCamera
+from hybridrenderer.core.config import RenderSettings
+from hybridrenderer.core.types import RenderFlags, RenderPathType
+from hybridrenderer.runtime.renderer import Renderer
+from hybridrenderer.scene import scene as scenes
 
 
 def test_live_path_switch_and_frame_stats():
@@ -54,7 +54,7 @@ def test_structured_log_channels(capsys):
     structured fields, caller location."""
     import logging
 
-    from hybridrenderer_tpu.runtime import log
+    from hybridrenderer.runtime import log
 
     ch = log.core().bind(scene="cube")
     rec = {}
@@ -82,12 +82,12 @@ def test_burst_matches_sequential_renders():
     """render_burst (frames-in-flight analog): K frames in one dispatch
     must be bit-identical to K sequential render() calls, history
     included."""
-    from hybridrenderer_tpu.core.types import RenderFlags as RF
+    from hybridrenderer.core.types import RenderFlags as RF
 
     data = scenes.cornell_scene().build()
     # forward + TAA: cheap to compile on CPU, still carries history
-    # through the scan (the hybrid/SVGF burst is exercised on TPU via
-    # bench.py BENCH_BURST)
+    # through the scan (the hybrid/SVGF burst is exercised on the GPU
+    # via bench.py BENCH_BURST)
     s = RenderSettings(width=48, height=48, path=RenderPathType.FORWARD,
                        flags=RF.LIGHT | RF.TAA)
 

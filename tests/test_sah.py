@@ -2,9 +2,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from hybridrenderer_tpu.ops import bvh as bvh_mod
-from hybridrenderer_tpu.ops import bvh_sah, bvh_wide, trace
-from hybridrenderer_tpu.scene import scene as scenes
+from hybridrenderer.ops import bvh as bvh_mod
+from hybridrenderer.ops import bvh_sah, trace
+from hybridrenderer.scene import scene as scenes
 
 
 def test_sah_structural_and_trace_match():
@@ -12,8 +12,6 @@ def test_sah_structural_and_trace_match():
     s = data.triangles
     b = bvh_sah.build_sah(s.v0, s.v1, s.v2)
     assert bvh_mod.validate_bvh(b, s.v0, s.v1, s.v2)
-    w = bvh_wide.build_wide(b, s.v0, s.v1, s.v2)
-    assert bvh_wide.validate_wide(w, s.v0, s.v1, s.v2)
 
     rng = np.random.default_rng(5)
     R = 512

@@ -2,7 +2,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from hybridrenderer_tpu.ops import sampling
+from hybridrenderer.ops import sampling
 
 
 def _tea_reference(v0, v1):

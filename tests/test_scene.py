@@ -1,7 +1,7 @@
 """Scene flattening tests: instances, triangle soup, lights CDF."""
 import numpy as np
 
-from hybridrenderer_tpu.scene import geometry, scene
+from hybridrenderer.scene import geometry, scene
 
 
 def test_cube_mesh_shape():

@@ -1,5 +1,5 @@
 """Quantized narrow shade rows (schema.build_shade_rows_q) — the
-Sponza-scale fast-gather path (VERDICT r3 task 3).
+Sponza-scale shade fetch.
 
 Above the ~16 MB fast-gather byte gate the exact u16 shade table can't
 ride the fast path; the quantized 29-col table (bf16 local
@@ -10,12 +10,12 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 
-from hybridrenderer_tpu.core.camera import OrbitCamera
-from hybridrenderer_tpu.core.config import RenderSettings
-from hybridrenderer_tpu.core.types import RenderFlags, RenderPathType
-from hybridrenderer_tpu.runtime.renderer import Renderer
-from hybridrenderer_tpu.scene import schema
-from hybridrenderer_tpu.scene import scene as scenes
+from hybridrenderer.core.camera import OrbitCamera
+from hybridrenderer.core.config import RenderSettings
+from hybridrenderer.core.types import RenderFlags, RenderPathType
+from hybridrenderer.runtime.renderer import Renderer
+from hybridrenderer.scene import schema
+from hybridrenderer.scene import scene as scenes
 
 
 def _with_q_table(data):

@@ -1,12 +1,12 @@
 """Checkpoint/resume of the carried FrameState."""
 import numpy as np
 
-from hybridrenderer_tpu.core.camera import OrbitCamera
-from hybridrenderer_tpu.core.config import RenderSettings
-from hybridrenderer_tpu.core.types import RenderFlags, RenderPathType
-from hybridrenderer_tpu.runtime import state_io
-from hybridrenderer_tpu.runtime.renderer import Renderer
-from hybridrenderer_tpu.scene import scene as scenes
+from hybridrenderer.core.camera import OrbitCamera
+from hybridrenderer.core.config import RenderSettings
+from hybridrenderer.core.types import RenderFlags, RenderPathType
+from hybridrenderer.runtime import state_io
+from hybridrenderer.runtime.renderer import Renderer
+from hybridrenderer.scene import scene as scenes
 
 
 def test_checkpoint_resume_bitexact(tmp_path):

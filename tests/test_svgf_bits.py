@@ -1,9 +1,9 @@
-"""SVGF storage-width quality gate (VERDICT r3 task 1).
+"""SVGF storage-width quality gate.
 
 Round 3 flipped ``svgf_bits`` to 16 without a quality gate and broke 5
 goldens (judge bisect: p99 4 / max 57 vs the f32 goldens). Round 4
 flipped it PROPERLY: default 16 (the reference's RGBA16F analog,
-SVGFPass.cpp:24-164; head −3.0 ms / full graph −7.2, r4 batch 1), with
+SVGFPass.cpp:24-164), with
 the golden ladder regenerated under the new default. Two standing
 gates:
 
@@ -24,12 +24,12 @@ import dataclasses
 
 import numpy as np
 
-from hybridrenderer_tpu.core.camera import OrbitCamera
-from hybridrenderer_tpu.core.config import RenderSettings
-from hybridrenderer_tpu.core.types import RenderFlags, RenderPathType
-from hybridrenderer_tpu.runtime.output import to_u8
-from hybridrenderer_tpu.runtime.renderer import Renderer
-from hybridrenderer_tpu.scene import scene as scenes
+from hybridrenderer.core.camera import OrbitCamera
+from hybridrenderer.core.config import RenderSettings
+from hybridrenderer.core.types import RenderFlags, RenderPathType
+from hybridrenderer.runtime.output import to_u8
+from hybridrenderer.runtime.renderer import Renderer
+from hybridrenderer.scene import scene as scenes
 
 HY = RenderFlags.default_hybrid()
 

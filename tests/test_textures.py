@@ -2,14 +2,14 @@
 import jax.numpy as jnp
 import numpy as np
 
-from hybridrenderer_tpu.core.camera import OrbitCamera
-from hybridrenderer_tpu.core.config import RenderSettings
-from hybridrenderer_tpu.core.types import DisplayMode, RenderFlags, RenderPathType
-from hybridrenderer_tpu.ops import texture as tex_ops
-from hybridrenderer_tpu.runtime.renderer import Renderer
-from hybridrenderer_tpu.scene import geometry
-from hybridrenderer_tpu.scene.scene import Scene
-from hybridrenderer_tpu.scene.schema import Material, TextureStack
+from hybridrenderer.core.camera import OrbitCamera
+from hybridrenderer.core.config import RenderSettings
+from hybridrenderer.core.types import DisplayMode, RenderFlags, RenderPathType
+from hybridrenderer.ops import texture as tex_ops
+from hybridrenderer.runtime.renderer import Renderer
+from hybridrenderer.scene import geometry
+from hybridrenderer.scene.scene import Scene
+from hybridrenderer.scene.schema import Material, TextureStack
 
 
 def _checker_stack(n=8):
@@ -136,7 +136,7 @@ def test_sample_stack_dispatch():
 def test_scene_build_finalizes_textures():
     """Scene.build derives static slot_usage from materials and bakes
     quads; only the colour slot is used by the stress scene."""
-    from hybridrenderer_tpu.scene.scene import stress_scene
+    from hybridrenderer.scene.scene import stress_scene
     data = stress_scene(num_objects=4, textured=True).build()
     assert data.textures.slot_usage == (True, False, False, False)
     assert data.textures.quads is not None
@@ -148,10 +148,10 @@ def test_scene_build_finalizes_textures():
 
 def test_quad_bake_budget_gate(monkeypatch):
     """Above the HBM quad budget the bake is skipped (4-tap fallback) —
-    the high-res-texture memory trade (VERDICT r3 task 7)."""
+    the high-res-texture memory trade."""
     import numpy as np
 
-    from hybridrenderer_tpu.scene import scene as scenes
+    from hybridrenderer.scene import scene as scenes
 
     monkeypatch.setenv("HR_QUAD_MAX_MB", "0")
     data = scenes.stress_scene(num_objects=4, textured=True).build()
@@ -160,10 +160,10 @@ def test_quad_bake_budget_gate(monkeypatch):
     data2 = scenes.stress_scene(num_objects=4, textured=True).build()
     assert data2.textures.quads is not None
     # both paths must render the same image (sample_bilinear fallback)
-    from hybridrenderer_tpu.core.camera import OrbitCamera
-    from hybridrenderer_tpu.core.config import RenderSettings
-    from hybridrenderer_tpu.core.types import RenderFlags, RenderPathType
-    from hybridrenderer_tpu.runtime.renderer import Renderer
+    from hybridrenderer.core.camera import OrbitCamera
+    from hybridrenderer.core.config import RenderSettings
+    from hybridrenderer.core.types import RenderFlags, RenderPathType
+    from hybridrenderer.runtime.renderer import Renderer
 
     s = RenderSettings(width=64, height=64, path=RenderPathType.FORWARD,
                        flags=RenderFlags.LIGHT)
@@ -209,7 +209,7 @@ def test_finalized_u8_storage(monkeypatch):
     quads; a textured frame stays within u8 quantization error of the
     f32-storage frame."""
     monkeypatch.setenv("HR_TEX_BITS", "8")
-    from hybridrenderer_tpu.scene.scene import stress_scene
+    from hybridrenderer.scene.scene import stress_scene
 
     data = stress_scene(num_objects=4, textured=True, tex_size=16).build()
     assert data.textures.data.dtype == jnp.uint8
@@ -252,7 +252,7 @@ def test_quad_gather_modes_agree(monkeypatch):
 def test_window_sampler_matches_bilinear(monkeypatch):
     """HR_TEX_SAMPLER=window (group-window atlas path, r5): matches
     sample_bilinear on a coherent uv field incl. a REPEAT-seam crossing
-    (CPU einsum is exact f32; TPU MXU adds ~1 u8 of rounding)."""
+    (the weight contractions run at full f32 precision)."""
     rng = np.random.default_rng(9)
     N, T = 3, 64
     data = jnp.asarray(rng.random((N, T, T, 4), np.float32))
@@ -261,7 +261,7 @@ def test_window_sampler_matches_bilinear(monkeypatch):
 
     import dataclasses as dc
 
-    from hybridrenderer_tpu.scene.schema import TextureStack
+    from hybridrenderer.scene.schema import TextureStack
     stack = TextureStack(data=data, sizes=sizes, windows=atlas)
 
     H, W = 64, 128

@@ -2,9 +2,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from hybridrenderer_tpu.ops import bvh as bvh_mod
-from hybridrenderer_tpu.ops import trace
-from hybridrenderer_tpu.scene import scene as scene_mod
+from hybridrenderer.ops import bvh as bvh_mod
+from hybridrenderer.ops import trace
+from hybridrenderer.scene import scene as scene_mod
 
 
 def _soup(data):
@@ -107,7 +107,7 @@ def test_shadow_query_shape_and_semantics():
 def test_native_builder_matches_jnp():
     """native/bvh_builder.cpp produces the IDENTICAL tree (topology,
     sorted order, AABBs) to the jitted jnp builder."""
-    from hybridrenderer_tpu.scene import scene as scenes
+    from hybridrenderer.scene import scene as scenes
 
     s = scenes.cornell_scene().build().triangles
     ref = bvh_mod.build_bvh(s.v0, s.v1, s.v2)
@@ -132,11 +132,11 @@ def test_fused_shadow_ao_pass_matches_split(monkeypatch):
     dispatches — any-hit visibility is packet-layout-independent."""
     import numpy as np
 
-    from hybridrenderer_tpu.core.camera import OrbitCamera
-    from hybridrenderer_tpu.core.config import RenderSettings
-    from hybridrenderer_tpu.core.types import RenderFlags, RenderPathType
-    from hybridrenderer_tpu.runtime.renderer import Renderer
-    from hybridrenderer_tpu.scene import scene as scenes
+    from hybridrenderer.core.camera import OrbitCamera
+    from hybridrenderer.core.config import RenderSettings
+    from hybridrenderer.core.types import RenderFlags, RenderPathType
+    from hybridrenderer.runtime.renderer import Renderer
+    from hybridrenderer.scene import scene as scenes
 
     data = scenes.cornell_scene().build()
     flags = (RenderFlags.LIGHT | RenderFlags.IBL | RenderFlags.EMISSIVE

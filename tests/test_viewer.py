@@ -9,13 +9,13 @@ import urllib.request
 import numpy as np
 import pytest
 
-from hybridrenderer_tpu.app.viewer import Viewer, make_server
-from hybridrenderer_tpu.core.camera import OrbitCamera
-from hybridrenderer_tpu.core.config import RenderSettings
-from hybridrenderer_tpu.core.types import (DisplayMode, RenderFlags,
+from hybridrenderer.app.viewer import Viewer, make_server
+from hybridrenderer.core.camera import OrbitCamera
+from hybridrenderer.core.config import RenderSettings
+from hybridrenderer.core.types import (DisplayMode, RenderFlags,
                                            RenderPathType)
-from hybridrenderer_tpu.runtime.renderer import Renderer
-from hybridrenderer_tpu.scene import scene as scene_mod
+from hybridrenderer.runtime.renderer import Renderer
+from hybridrenderer.scene import scene as scene_mod
 
 
 @pytest.fixture(scope="module")
